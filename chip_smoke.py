@@ -1,9 +1,16 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one GPU: builds the hand-written
 CUDA kernels from ``src/repro_torch/csrc``, holds each against its plain
-PyTorch version, then runs the paper's TPC-H cursor loops Q2, Q13, Q18 and
-Q21 in Aggify+ form at scale factor 10 on both grouped routes and checks
-every result against a numpy oracle.
+PyTorch version, then drives the port's two paths:
+
+* the paper's TPC-H cursor loops Q2, Q13, Q18 and Q21 in Aggify+ form at
+  scale factor 10 on both grouped routes, every result checked against a
+  numpy oracle;
+* the Mamba-2 LM (``mamba2-2.7b`` at full width and depth, random weights
+  from a seed): ``LM.prefill`` through the SSD-scan kernel at the
+  ``prefill_32k`` sequence length, and the continuous-batching ``Server``,
+  held against the plain route, the float64 scan oracle, the step-by-step
+  decode and a bf16 noise floor measured in the same run.
 
     python3 chip_smoke.py
 
@@ -32,7 +39,17 @@ SCALE = 10          # TPC-H scale factor of the main path
 SEED = 0
 SOURCE = "src/repro_torch/csrc/segment_agg.cu"
 REPLACES = {"segagg_unsorted": "src/repro/kernels/segment_agg.py:287",
-            "segagg_sorted": "src/repro/kernels/segment_agg.py:304"}
+            "segagg_sorted": "src/repro/kernels/segment_agg.py:304",
+            "ssd_scan": "src/repro/kernels/ssd_scan.py:39"}
+SSD_SOURCE = "src/repro_torch/csrc/ssd_scan.cu"
+#: float32 rate of one H100 SXM's CUDA cores (NVIDIA data sheet): the peak
+#: the SSD kernel's arithmetic can use, all of it float32 by contract
+F32_FLOPS_PER_S = 67e12
+LM_ARCH = "mamba2-2.7b"
+#: the main path's prefill: the prefill_32k sequence length, batch cut
+#: from 32 to 2 so one layer's activations fit the card's 80 GB
+PREFILL_BATCH, PREFILL_SEQ = 2, 32768
+LM_CHUNK = 128      # the launcher's ssd_chunk at full size
 
 
 class SmokeFailure(RuntimeError):
@@ -356,6 +373,351 @@ def main_path_kernels(torch, sa, captured, launches):
     return out
 
 
+# ---------------------------------------------------------------------------
+# The LM path: the SSD-scan kernel, alone and inside mamba2-2.7b
+# ---------------------------------------------------------------------------
+
+
+def rel_err(torch, got, want) -> float:
+    """Relative Frobenius error of ``got`` against ``want``, in float64."""
+    got, want = got.double(), want.double()
+    return float(torch.linalg.vector_norm(got - want)
+                 / torch.linalg.vector_norm(want))
+
+
+def ssd_bound(x, log_a, b, c, chunk) -> tuple[float, float, str]:
+    """(bound ms, float32 flops, what bounds it) of one SSD scan: x, log_a,
+    B and C read once and y written once over the HBM rate, against the
+    float32 flops the function needs over the float32 cores' rate.  Per
+    chunk: the scores C·Bᵀ over the causal s <= t pairs once per B/C row
+    (shared by the heads that share the row), and per batch-head scores·x
+    over the same pairs, C·h and the state update over all of N x P."""
+    bh, t, p = x.shape
+    g, n = b.shape[0], b.shape[-1]
+    nbytes = sum(v.numel() * v.element_size() for v in (x, log_a, b, c)) \
+        + x.numel() * x.element_size()
+    tri, chunks = chunk * (chunk + 1) // 2, t // chunk
+    flops = g * chunks * 2 * tri * n \
+        + bh * chunks * (2 * tri * p + 4 * chunk * n * p)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3, flops,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def ssd_compare(torch, ss, args, chunk, label: dict, reps=3) -> dict:
+    """Kernel against plain version on the same inputs.  Gate: relative
+    error <= 1e-3 — the two differ only in the order of float32 sums, and
+    y's last rounding to bf16 may flip an element by one ulp (2^-8).
+    Times both by CUDA events."""
+    got = ss.ssd_scan(*args, chunk=chunk, backend="auto")
+    want = ss.ssd_scan(*args, chunk=chunk, backend="plain")
+    torch.cuda.synchronize()
+    err = rel_err(torch, got, want)
+    max_abs = float((got.float() - want.float()).abs().max())
+    check(bool(torch.isfinite(got).all()), f"ssd_scan {label}: non-finite y")
+    check(err <= 1e-3, f"ssd_scan {label}: kernel vs plain rel_err {err}")
+    del got, want
+    ms = cuda_ms(torch, lambda: ss.ssd_scan(*args, chunk=chunk,
+                                            backend="auto"), reps)
+    plain = cuda_ms(torch, lambda: ss.ssd_scan(*args, chunk=chunk,
+                                               backend="plain"), 2)
+    bound, flops, by = ssd_bound(*args, chunk)
+    x, b = args[0], args[2]
+    torch.cuda.empty_cache()
+    return {"kernel": "ssd_scan", **label, "bh": x.shape[0],
+            "steps": x.shape[1], "p": x.shape[2], "n": b.shape[-1],
+            "chunk": chunk, "dtype": str(x.dtype).replace("torch.", ""),
+            "bc_rows": b.shape[0], "rel_err": err, "gate": 1e-3,
+            "max_abs_err": max_abs, "ms": ms, "plain_ms": plain,
+            "bound_ms": bound, "bound_by": by, "flops": flops}
+
+
+def ssd_phases(torch, ss, ref) -> None:
+    """The kernel at the main path's shape (B = 2, H = 80, T = 32768,
+    P = 64, N = 128) in bf16 and float32, chunk 64 and 128, with B/C shared
+    by the heads and broadcast to every head; then float32 against the
+    float64 sequential oracle at T = 1024 (gate 1e-4)."""
+    b_sz, heads, t, p, n = PREFILL_BATCH, 80, PREFILL_SEQ, 64, 128
+    g = torch.Generator(device="cuda").manual_seed(SEED + 11)
+
+    def rnd(shape, scale, dtype):
+        return (torch.randn(shape, generator=g, device="cuda") * scale) \
+            .to(dtype)
+
+    for dtype in (torch.bfloat16, torch.float32):
+        x = rnd((b_sz * heads, t, p), 0.5, dtype)
+        log_a = -rnd((b_sz * heads, t), 0.1, torch.float32).abs()
+        b, c = rnd((b_sz, t, n), 0.3, dtype), rnd((b_sz, t, n), 0.3, dtype)
+        for layout in ("shared", "broadcast"):
+            bc = (b, c) if layout == "shared" else \
+                (b.repeat_interleave(heads, 0), c.repeat_interleave(heads, 0))
+            for chunk in (64, 128):
+                emit({"phase": "kernel_vs_plain",
+                      **ssd_compare(torch, ss, (x, log_a, *bc), chunk,
+                                    {"bc": layout})})
+            del bc
+        del x, log_a, b, c
+        torch.cuda.empty_cache()
+
+    bh, t = b_sz * heads, 1024
+    x = rnd((bh, t, p), 0.5, torch.float32)
+    log_a = -rnd((bh, t), 0.1, torch.float32).abs()
+    b = rnd((b_sz, t, n), 0.3, torch.float32)
+    c = rnd((b_sz, t, n), 0.3, torch.float32)
+    want = ref.ssd_scan_ref(x.double(), log_a.double(), b.double(),
+                            c.double())
+    for chunk in (64, 128):
+        err = rel_err(torch, ss.ssd_scan(x, log_a, b, c, chunk=chunk), want)
+        check(err <= 1e-4, f"ssd_scan vs float64 oracle, chunk {chunk}: "
+                           f"rel_err {err}")
+        emit({"phase": "kernel_vs_oracle", "kernel": "ssd_scan", "bh": bh,
+              "steps": t, "p": p, "n": n, "chunk": chunk,
+              "dtype": "float32", "oracle": "float64 sequential",
+              "rel_err": err, "gate": 1e-4})
+    del x, log_a, b, c, want
+    torch.cuda.empty_cache()
+
+
+class SsdClock:
+    """Wraps the model's call of ``kernels.ssd_scan`` with CUDA events, and
+    keeps the arguments of the first call while ``capture`` is set."""
+
+    def __init__(self, torch, ssm_mod):
+        self.torch, self.mod, self.fn = torch, ssm_mod, ssm_mod.ssd_scan
+        self.events, self.capture, self.captured = [], False, None
+
+        def timed(*a, **kw):
+            if self.capture and self.captured is None:
+                self.captured = (a, kw)
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            out = self.fn(*a, **kw)
+            e.record()
+            self.events.append((s, e))
+            return out
+        ssm_mod.ssd_scan = timed
+
+    def read_ms(self) -> float:
+        self.torch.cuda.synchronize()
+        ms = sum(s.elapsed_time(e) for s, e in self.events)
+        self.events.clear()
+        return ms
+
+    def close(self):
+        self.mod.ssd_scan = self.fn
+
+
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
+def _tree_map(fn, tree):
+    return {k: _tree_map(fn, v) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
+
+
+def lm_prefill(torch, ss, sa, lm, params, toks, cfg, ssm_mod):
+    """The main path: ``LM.prefill`` at full width and depth, twice, with
+    every launch count set to 0 just before each run and read just after.
+    Returns (launches of the last run, the kernel against its plain
+    version on the first layer's captured inputs)."""
+    clock = SsdClock(torch, ssm_mod)
+    try:
+        for run in range(2):
+            ss.ssd_scan_cuda.launches = 0
+            sa.segagg_sorted.launches = sa.segagg_unsorted.launches = 0
+            clock.capture = run == 0
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            logits, _ = lm.prefill(params, toks)
+            torch.cuda.synchronize()
+            lat = (time.perf_counter() - t1) * 1e3
+            ssd_ms = clock.read_ms()
+            launches = ss.ssd_scan_cuda.launches
+            check(launches == cfg.n_layers,
+                  f"lm_prefill: {launches} ssd_scan launches, want "
+                  f"{cfg.n_layers}")
+            check(sa.segagg_sorted.launches + sa.segagg_unsorted.launches
+                  == 0, "lm_prefill launched a segment kernel")
+            check(tuple(logits.shape) == (PREFILL_BATCH, lm.vocab_padded)
+                  and bool(torch.isfinite(logits).all()),
+                  "lm_prefill: logits not finite or of the wrong shape")
+            del logits
+            emit({"phase": "lm_prefill", "run": run,
+                  "batch": PREFILL_BATCH, "seq": PREFILL_SEQ,
+                  "chunk": lm.ssd_chunk, "latency_ms": lat,
+                  "tokens_per_s": PREFILL_BATCH * PREFILL_SEQ / lat * 1e3,
+                  "ssd_ms": ssd_ms, "ssd_share": ssd_ms / lat,
+                  "launches": {"ssd_scan": launches},
+                  "peak_gib": torch.cuda.max_memory_allocated() / 2**30})
+    finally:
+        clock.close()
+    a, kw = clock.captured
+    cap = ssd_compare(torch, ss, a[:4], kw["chunk"], {"layer": 0})
+    emit({"phase": "main_path_kernel", **cap})
+    return launches, cap
+
+
+def teacher_forced_margin(torch, lm, params, reqs) -> float:
+    """Feeds each served request's prompt and tokens through batch-1
+    ``decode_step`` from an empty cache; returns the worst margin
+    (logit of the served token − the top logit) / max |logit| over every
+    served token.  ≥ 0 where each token is the argmax."""
+    worst = float("inf")
+    for r in reqs:
+        cache = lm.init_cache(1, 128)
+        for i, tok in enumerate(r.prompt + r.out[:-1]):
+            lg, cache = lm.decode_step(params, cache,
+                                       torch.tensor([[tok]], device="cuda"))
+            j = i - (len(r.prompt) - 1)
+            if j >= 0:
+                lg = lg[0]
+                margin = (float(lg[r.out[j]]) - float(lg.max())) \
+                    / float(lg.abs().max())
+                worst = min(worst, margin)
+    return worst
+
+
+def lm_phases(torch, ss, sa) -> dict:
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch.serve import make_requests, serve_requests
+    from repro_torch.models import LM
+    from repro_torch.models import blocks as B
+    from repro_torch.models import ssm as ssm_mod
+    from repro_torch.models.layers import embed
+    from repro_torch.models.model import layer
+
+    cfg = get_config(LM_ARCH)
+    check(SHAPES["prefill_32k"].seq_len == PREFILL_SEQ, "prefill_32k moved")
+    lm = LM(cfg, ssd_chunk=LM_CHUNK)
+    t0 = time.perf_counter()
+    params = lm.init(torch.Generator(device="cuda").manual_seed(SEED))
+    torch.cuda.synchronize()
+    n_params = sum(v.numel() for v in _leaves(params))
+    flags = torch.backends
+    emit({"phase": "lm_init", "arch": LM_ARCH, "layers": cfg.n_layers,
+          "d_model": cfg.d_model, "d_inner": cfg.ssm_expand * cfg.d_model,
+          "heads": cfg.ssm_expand * cfg.d_model // cfg.ssm_headdim,
+          "ssm_state": cfg.ssm_state, "vocab_padded": lm.vocab_padded,
+          "params": n_params, "param_count_analytic": cfg.param_count(),
+          "bytes": 2 * n_params, "dtype": "bfloat16",
+          "seconds": time.perf_counter() - t0,
+          "backend": {
+              "cuda.matmul.allow_tf32": flags.cuda.matmul.allow_tf32,
+              "cuda.matmul.allow_bf16_reduced_precision_reduction":
+                  flags.cuda.matmul.allow_bf16_reduced_precision_reduction,
+              "cudnn.allow_tf32": flags.cudnn.allow_tf32}})
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    toks = torch.randint(0, cfg.vocab, (PREFILL_BATCH, PREFILL_SEQ),
+                         generator=gen, device="cuda")
+
+    # one SSM block's sublayer output h, kernel against plain route (gate
+    # 1e-2: the scan's bf16 y, rounded apart in a few elements, passes
+    # through the skip, the gate, the norm and the output projection)
+    lp = layer(params["blocks"], 0)
+    xn = B._norm(cfg, lp, embed(params["embed"], toks).to(lm.dtype), "norm1")
+    kw = dict(state=cfg.ssm_state, headdim=cfg.ssm_headdim,
+              expand=cfg.ssm_expand, chunk=LM_CHUNK)
+    h_k = ssm_mod.ssm_layer(lp["ssm"], xn, backend="auto", **kw)
+    h_p = ssm_mod.ssm_layer(lp["ssm"], xn, backend="plain", **kw)
+    err = rel_err(torch, h_k, h_p)
+    check(err <= 1e-2, f"lm_layer: kernel vs plain rel_err {err}")
+    emit({"phase": "lm_layer", "tokens": list(toks.shape),
+          "dtype": "bfloat16", "chunk": LM_CHUNK,
+          "rel_err_kernel_vs_plain": err, "gate": 1e-2})
+    del lp, xn, h_k, h_p
+    torch.cuda.empty_cache()
+
+    launches, cap = lm_prefill(torch, ss, sa, lm, params, toks, cfg, ssm_mod)
+    torch.cuda.empty_cache()
+
+    # bf16 end to end: the kernel's gap against the chunk-size noise floor
+    # of the plain route on the same tokens (gate: gap <= 3 x floor)
+    toks4k = toks[:1, :4096]
+    outs = {}
+    for name, backend, chunk in (("kernel128", "auto", 128),
+                                 ("plain128", "plain", 128),
+                                 ("plain64", "plain", 64)):
+        lm.ssd_backend, lm.ssd_chunk = backend, chunk
+        outs[name] = lm.forward(params, toks4k)[0]
+    lm.ssd_backend, lm.ssd_chunk = "auto", LM_CHUNK
+    gap = rel_err(torch, outs["kernel128"], outs["plain128"])
+    floor = rel_err(torch, outs["plain64"], outs["plain128"])
+    check(gap <= 3 * floor, f"lm_bf16_end_to_end: kernel gap {gap} > 3 x "
+                            f"noise floor {floor}")
+    emit({"phase": "lm_bf16_end_to_end", "tokens": [1, 4096],
+          "rel_err_kernel_vs_plain": gap,
+          "noise_floor_plain_chunk64_vs_128": floor,
+          "gate": "gap <= 3 x floor"})
+    del outs
+    torch.cuda.empty_cache()
+
+    # serving in bf16: the launcher's LM workload
+    reqs = make_requests(cfg.vocab, 8, 16)
+    res = serve_requests(lm, params, reqs, slots=4, max_len=128)
+    check(res["done"] == 8 and all(len(r.out) == 16 for r in reqs),
+          f"lm_serve: {res['done']}/8 requests done")
+    emit({"phase": "lm_serve", "dtype": "bfloat16", "slots": 4,
+          "requests": 8, "done": res["done"], "steps": res["steps"],
+          "prompt_lens": [len(r.prompt) for r in reqs], "max_new": 16,
+          "tokens": res["tokens"], "seconds": res["seconds"],
+          "tokens_per_s": res["tokens"] / res["seconds"]})
+
+    # float32 at full width and depth: the same weights, widened
+    params32 = _tree_map(lambda v: v.float(), params)
+    del params
+    torch.cuda.empty_cache()
+    lm32 = LM(cfg, ssd_chunk=LM_CHUNK, dtype=torch.float32)
+    k32 = lm32.forward(params32, toks4k)[0]
+    lm32.ssd_backend = "plain"
+    p32 = lm32.forward(params32, toks4k)[0]
+    lm32.ssd_backend = "auto"
+    err_route = rel_err(torch, k32, p32)
+    check(err_route <= 1e-4, f"lm_f32: kernel vs plain route {err_route}")
+    del k32, p32
+    prompt = toks4k[:, :256]
+    last, _ = lm32.prefill(params32, prompt)
+    cache = lm32.init_cache(1, 256)
+    for i in range(prompt.shape[1]):
+        step, cache = lm32.decode_step(params32, cache, prompt[:, i:i + 1])
+    # decode masks the pad vocab to -1e30, prefill does not: real vocab only
+    err_dec = rel_err(torch, step[:, :cfg.vocab], last[:, :cfg.vocab])
+    check(err_dec <= 1e-3, f"lm_f32: prefill vs step-by-step decode "
+                           f"{err_dec}")
+    emit({"phase": "lm_f32", "tokens": [1, 4096],
+          "rel_err_kernel_vs_plain_route": err_route, "gate_route": 1e-4,
+          "decode_prompt": 256, "rel_err_prefill_vs_decode": err_dec,
+          "gate_decode": 1e-3})
+    del cache, step, last
+
+    # serving in float32; every served token against batch-1 decode
+    reqs = make_requests(cfg.vocab, 8, 16)
+    res = serve_requests(lm32, params32, reqs, slots=4, max_len=128)
+    check(res["done"] == 8 and all(len(r.out) == 16 for r in reqs),
+          f"lm_serve f32: {res['done']}/8 requests done")
+    worst = teacher_forced_margin(torch, lm32, params32, reqs)
+    check(worst >= -1e-4, f"lm_serve f32: a served token is not the "
+                          f"batch-1 argmax (margin {worst})")
+    emit({"phase": "lm_serve", "dtype": "float32", "slots": 4,
+          "requests": 8, "done": res["done"], "steps": res["steps"],
+          "tokens": res["tokens"], "seconds": res["seconds"],
+          "tokens_per_s": res["tokens"] / res["seconds"],
+          "teacher_forced_worst_margin": worst, "gate": -1e-4})
+    del params32
+    torch.cuda.empty_cache()
+    return {"name": "ssd_scan", "route": "cuda", "source": SSD_SOURCE,
+            "replaces": REPLACES["ssd_scan"], "launches": launches,
+            "max_abs_err": cap["max_abs_err"], "ms": cap["ms"],
+            "plain_ms": cap["plain_ms"], "bound_ms": cap["bound_ms"],
+            "bound_by": cap["bound_by"], "library_ms": None}
+
+
 def main() -> int:
     try:
         import torch
@@ -371,9 +733,12 @@ def main() -> int:
               "src/repro_torch beside it)", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.kernels import build
+    from repro_torch.kernels import build, ref
     from repro_torch.kernels import segment_agg as sa
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.models.layers import reference_numerics
 
+    reference_numerics()
     t_start = time.perf_counter()
     card = card_line()
     print(card, flush=True)
@@ -388,7 +753,8 @@ def main() -> int:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "nvcc.log").write_text(log)
     emit({"phase": "build", "seconds": secs,
-          "library": str(build.library_path("segment_agg").name)})
+          "libraries": [build.library_path(n).name
+                        for n in ("segment_agg", "ssd_scan")]})
 
     value = ("sum", "count", "min", "max")
     index = (("argmin_first", "argmax_last", "sum", "count"),
@@ -402,8 +768,13 @@ def main() -> int:
     kernel_vs_plain(torch, sa, "segagg_sorted", 60_000_000, 15_000_000,
                     (value, value), True, seed=4)
 
-    _cat, captured, launches = main_path(torch, sa)
+    cat, captured, launches = main_path(torch, sa)
     kernels = main_path_kernels(torch, sa, captured, launches)
+    del cat, captured
+    torch.cuda.empty_cache()
+
+    ssd_phases(torch, ss, ref)
+    kernels.append(lm_phases(torch, ss, sa))
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(card_line(), flush=True)
     emit({"kernels": kernels})

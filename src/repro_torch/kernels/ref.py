@@ -1,6 +1,8 @@
-"""Plain segment oracles (twin of the segment part of
-``repro/kernels/ref.py``): the correctness contracts the kernels and the
-plain version are held against, written as directly as torch allows."""
+"""Plain oracles (twin of ``repro/kernels/ref.py``): the segment
+contracts the kernels and their plain versions are held against, written
+as directly as torch allows, and the two SSD scans — the chunked dual form
+``ssd_scan_chunked`` (the plain version of the SSD kernel) and the
+sequential recurrence ``ssd_scan_ref`` (its oracle)."""
 from __future__ import annotations
 
 import torch
@@ -59,3 +61,73 @@ def segment_arg_index_ref(keys: torch.Tensor, segs: torch.Tensor,
                         "amin", n)
     return _segment(torch.where(hit, idx, -1), segs, num_segments, "amax",
                     -1)
+
+
+def _bc_heads(x: torch.Tensor, b: torch.Tensor) -> int:
+    """Batch-heads sharing one B/C row: 1 for the (BH, T, N) layout, H
+    when B and C are (BH / H, T, N) and row bh reads B[bh // H]."""
+    bh, g = x.shape[0], b.shape[0]
+    if g < 1 or bh % g:
+        raise ValueError(f"B/C rows ({g}) must divide the batch-heads ({bh})")
+    return bh // g
+
+
+def ssd_scan_chunked(x: torch.Tensor, log_a: torch.Tensor, b: torch.Tensor,
+                     c: torch.Tensor, chunk: int = 64) -> torch.Tensor:
+    """Chunked SSD in plain torch: the dual form of the kernel (products
+    inside a chunk, the carried state merged across chunks), all in
+    float32, y returned in x's dtype.  x (BH, T, P); log_a (BH, T);
+    b, c (BH, T, N), or (BH / H, T, N) shared by H consecutive
+    batch-heads.  T must be a multiple of ``chunk``."""
+    bh, t, p = x.shape
+    n = b.shape[-1]
+    if t % chunk:
+        raise ValueError(f"T={t} must be a multiple of chunk={chunk}")
+    heads = _bc_heads(x, b)
+    g, nc = bh // heads, t // chunk
+    f32 = torch.float32
+    xc = x.reshape(g, heads, nc, chunk, p).to(f32)
+    lac = log_a.reshape(g, heads, nc, chunk, 1).to(f32)
+    bc = b.reshape(g, 1, nc, chunk, n).to(f32)
+    cc = c.reshape(g, 1, nc, chunk, n).to(f32)
+
+    la = torch.cumsum(lac, dim=3)                         # (G,H,NC,C,1)
+    causal = torch.ones(chunk, chunk, dtype=torch.bool,
+                        device=x.device).tril()
+    decay = torch.where(causal, torch.exp(la - la.transpose(3, 4)), 0.0)
+    scores = (cc @ bc.transpose(3, 4)) * decay            # (G,H,NC,C,C)
+    del decay
+    y = scores @ xc                                       # intra-chunk
+    del scores
+
+    # carried state across chunks (the associative Merge)
+    la_last = la[:, :, :, -1:, :]                         # (G,H,NC,1,1)
+    w = torch.exp(la_last - la)                           # (G,H,NC,C,1)
+    chunk_state = (bc * w).transpose(3, 4) @ xc           # (G,H,NC,N,P)
+    chunk_decay = torch.exp(la_last[..., 0, 0])           # (G,H,NC)
+    h = torch.zeros((g, heads, n, p), dtype=f32, device=x.device)
+    for j in range(nc):
+        y[:, :, j] += (cc[:, :, j] @ h) * torch.exp(la[:, :, j])
+        h = chunk_decay[:, :, j, None, None] * h + chunk_state[:, :, j]
+    return y.reshape(bh, t, p).to(x.dtype)
+
+
+def ssd_scan_ref(x: torch.Tensor, log_a: torch.Tensor, b: torch.Tensor,
+                 c: torch.Tensor) -> torch.Tensor:
+    """Sequential SSD recurrence h_t = a_t h_{t-1} + B_t (x) x_t,
+    y_t = C_t . h_t, one step at a time, in float32 (float64 for float64
+    inputs); y in x's dtype.  Same layouts as ``ssd_scan_chunked``."""
+    bh, t, p = x.shape
+    n = b.shape[-1]
+    heads = _bc_heads(x, b)
+    acc = torch.promote_types(x.dtype, torch.float32)
+    xs, la = x.to(acc), log_a.to(acc)
+    bs = b.to(acc).repeat_interleave(heads, dim=0)
+    cs = c.to(acc).repeat_interleave(heads, dim=0)
+    h = torch.zeros((bh, n, p), dtype=acc, device=x.device)
+    y = torch.empty((bh, t, p), dtype=acc, device=x.device)
+    for i in range(t):
+        h = torch.exp(la[:, i])[:, None, None] * h \
+            + bs[:, i, :, None] * xs[:, i, None, :]
+        y[:, i] = (cs[:, i, None, :] @ h)[:, 0]
+    return y.to(x.dtype)

@@ -1,0 +1,78 @@
+"""Foundational model layers over parameter dicts of tensors (twin of the
+SSM family's part of ``repro/models/layers.py``).
+
+Conventions, as in the reference: parameters are stored in the model dtype
+(bf16 by default); products accumulate in float32 and round once to the
+dtype the reference writes (``preferred_element_type=float32`` then
+``astype``); normalisation runs in float32.
+
+The backend switches that change float results on the card are set by
+``reference_numerics``, which the entry points call once
+(``launch/serve.py``, ``chip_smoke.py``; building an ``LM`` changes no
+process-wide setting):
+
+* ``torch.backends.cuda.matmul.allow_tf32 = False``: float32 products stay
+  float32 (the reference's float32 dots are full precision).
+* ``torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction =
+  False``: a bf16 product accumulates in float32 end to end and rounds
+  once, as ``preferred_element_type=float32`` does; with it on, cuBLAS
+  may reduce split-K partial sums in bf16.
+* ``torch.backends.cudnn.allow_tf32 = False``: no convolution in the port
+  uses cuDNN (the causal convolution is the reference's four shifted adds),
+  so this only keeps a future one honest.
+"""
+from __future__ import annotations
+
+import torch
+
+F32 = torch.float32
+
+
+def reference_numerics() -> None:
+    """Pin the backend switches above (process-wide PyTorch settings)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """float32 product of ``a @ b`` for bf16 or float32 operands: the bf16
+    values widen exactly, so this is the reference's bf16 product with
+    ``preferred_element_type=float32`` kept in float32."""
+    return a.to(F32) @ b.to(F32)
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    x32 = x.to(F32)
+    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps) * scale.to(F32)).to(x.dtype)
+
+
+def init_rms_norm(d: int, dtype=torch.bfloat16, device=None) -> torch.Tensor:
+    return torch.ones((d,), dtype=dtype, device=device)
+
+
+def embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:
+    return params["embedding"][tokens.to(torch.int64)]
+
+
+def unembed(params: dict, x: torch.Tensor) -> torch.Tensor:
+    """Returns float32 logits."""
+    w = params.get("unembedding", params["embedding"])
+    return matmul_f32(x, w.t())
+
+
+def normal(gen: torch.Generator, shape, scale: float, dtype,
+           device) -> torch.Tensor:
+    """Standard normal float32 draws from ``gen``, scaled, in ``dtype``."""
+    return (torch.randn(shape, generator=gen, dtype=F32, device=device)
+            * scale).to(dtype)
+
+
+def init_embed(gen: torch.Generator, vocab: int, d: int, tie: bool,
+               dtype=torch.bfloat16, device=None) -> dict:
+    p = {"embedding": normal(gen, (vocab, d), 0.01, dtype, device)}
+    if not tie:
+        p["unembedding"] = normal(gen, (vocab, d), 0.01, dtype, device)
+    return p

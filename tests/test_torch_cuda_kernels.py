@@ -1,6 +1,7 @@
-"""The CUDA kernels on the card: each against its plain version, bit for
-bit, and the grouped TPC-H path on the card against the same path on the
-CPU.  Every test here needs a CUDA card and skips without one; this file
+"""The CUDA kernels on the card: the segment kernels against their plain
+version bit for bit, the grouped TPC-H path on the card against the same
+path on the CPU, and the SSD-scan kernel against its plain version and the
+float64 sequential oracle, alone and inside the LM.  Every test here needs a CUDA card and skips without one; this file
 imports neither ``jax`` nor ``repro``, so on a GPU machine it runs alone:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda_kernels.py
@@ -9,7 +10,12 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_config
+from repro_torch.kernels import ref
 from repro_torch.kernels import segment_agg as sa
+from repro_torch.kernels import ssd_scan as ss
+from repro_torch.models import LM
+from repro_torch.models.layers import reference_numerics
 from repro_torch.relational import Table, execute
 from repro_torch.relational.tpch import gen_tpch
 from repro_torch.workloads.tpch_queries import (QUERIES, grouped_call,
@@ -93,3 +99,85 @@ def test_grouped_queries_on_the_card_match_the_cpu(qname):
     for route in (True, False):
         for k, v in out["cpu", route].items():
             np.testing.assert_array_equal(out["cuda", route][k], v)
+
+
+def _ssd_inputs(seed, bh, t, p, n, g, dtype):
+    r = np.random.default_rng(seed)
+    x = torch.as_tensor(r.standard_normal((bh, t, p)) * 0.5, dtype=dtype)
+    log_a = torch.as_tensor(-np.abs(r.standard_normal((bh, t))) * 0.1,
+                            dtype=torch.float32)
+    b = torch.as_tensor(r.standard_normal((g, t, n)) * 0.3, dtype=dtype)
+    c = torch.as_tensor(r.standard_normal((g, t, n)) * 0.3, dtype=dtype)
+    return [v.cuda() for v in (x, log_a, b, c)]
+
+
+def _rel(got, want):
+    got, want = got.double(), want.double()
+    return float(torch.linalg.vector_norm(got - want)
+                 / torch.linalg.vector_norm(want))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh,g,t,p,n,chunk", [
+    (4, 4, 256, 64, 16, 32), (6, 2, 512, 64, 128, 128),
+    (3, 1, 192, 48, 32, 64), (2, 2, 64, 16, 8, 8)])
+def test_ssd_kernel_matches_plain_version(dtype, bh, g, t, p, n, chunk):
+    """Same inputs, same float32 arithmetic in another summation order:
+    relative Frobenius error <= 1e-5 in float32 and <= 1e-3 in bf16, where
+    y's final bf16 rounding may flip an element by one ulp (2^-8)."""
+    args = _ssd_inputs(t + p, bh, t, p, n, g, dtype)
+    before = ss.ssd_scan_cuda.launches
+    got = ss.ssd_scan(*args, chunk=chunk)
+    assert ss.ssd_scan_cuda.launches == before + 1
+    want = ss.ssd_scan(*args, chunk=chunk, backend="plain")
+    assert ss.ssd_scan_cuda.launches == before + 1
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (bh, t, p)
+    assert _rel(got, want) <= (1e-5 if dtype == torch.float32 else 1e-3)
+
+
+def test_ssd_kernel_matches_the_float64_oracle():
+    """float32 inputs against the sequential recurrence in float64: the
+    kernel's own float32 rounding only, <= 1e-4 relative."""
+    args = _ssd_inputs(9, 4, 512, 64, 128, 2, torch.float32)
+    got = ss.ssd_scan(*args, chunk=128)
+    want = ref.ssd_scan_ref(*(a.double() for a in args))
+    assert _rel(got, want) <= 1e-4
+
+
+def test_ssd_kernel_checks():
+    x, log_a, b, c = _ssd_inputs(1, 2, 96, 16, 8, 2, torch.float32)
+    with pytest.raises(ValueError, match="chunk=48"):
+        ss.ssd_scan_cuda(x, log_a, b, c, 48)
+    with pytest.raises(ValueError, match="share one dtype"):
+        ss.ssd_scan_cuda(x, log_a, b.bfloat16(), c, 32)
+    with pytest.raises(ValueError, match="contiguous"):
+        ss.ssd_scan_cuda(x.transpose(1, 2).contiguous().transpose(1, 2),
+                         log_a, b, c, 32)
+    with pytest.raises(ValueError, match="shared memory"):
+        big = _ssd_inputs(1, 1, 256, 16, 128, 1, torch.float32)
+        ss.ssd_scan_cuda(*big, 256)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        ss.ssd_scan_cuda(*_ssd_inputs(1, 2, 64, 16, 12, 2, torch.bfloat16),
+                         32)
+    shifted = torch.empty(x.numel() + 1, device="cuda")[1:].view(x.shape)
+    shifted.copy_(x)                  # contiguous, 4 bytes off a boundary
+    with pytest.raises(ValueError, match="16-byte boundaries"):
+        ss.ssd_scan_cuda(shifted, log_a, b, c, 32)
+
+
+def test_lm_prefill_through_the_kernel():
+    """The reduced LM on the card: one kernel launch per layer, and the
+    kernel route equal to the plain route within float32 summation order."""
+    reference_numerics()
+    cfg = get_config("mamba2-2.7b").reduced()
+    out = {}
+    for backend in ("auto", "plain"):
+        lm = LM(cfg, ssd_chunk=8, dtype=torch.float32, ssd_backend=backend)
+        params = lm.init(torch.Generator(device="cuda").manual_seed(0))
+        toks = torch.arange(2 * 37, device="cuda").reshape(2, 37) % cfg.vocab
+        before = ss.ssd_scan_cuda.launches
+        out[backend], _ = lm.prefill(params, toks)
+        assert ss.ssd_scan_cuda.launches - before == \
+            (cfg.n_layers if backend == "auto" else 0)
+    assert _rel(out["auto"], out["plain"]) <= 1e-4
