@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one GPU: builds the hand-written
-CUDA kernels from ``src/repro_torch/csrc``, holds each against its plain
-PyTorch version, then drives the port's two paths:
+CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per source, all
+started together), holds each against its plain PyTorch version, then
+drives the port's three paths:
 
 * the paper's TPC-H cursor loops Q2, Q13, Q18 and Q21 in Aggify+ form at
   scale factor 10 on both grouped routes, every result checked against a
@@ -10,7 +11,14 @@ PyTorch version, then drives the port's two paths:
   from a seed): ``LM.prefill`` through the SSD-scan kernel at the
   ``prefill_32k`` sequence length, and the continuous-batching ``Server``,
   held against the plain route, the float64 scan oracle, the step-by-step
-  decode and a bf16 noise floor measured in the same run.
+  decode and a bf16 noise floor measured in the same run;
+* the flash-decode kernel through ``kernels.ops.decode_attention`` — on
+  the reference sweep, on the KV caches of ``qwen3-14b`` (the dense family
+  at full width and depth, random weights from a seed) served by the same
+  ``Server`` (40 captured decode-attention calls of one step, held against
+  the output the model used), on each layer's flash-prefill q, k, v at 4
+  float32 layers (held against flash's rows), and at the ``decode_32k``
+  shape beside one ``scaled_dot_product_attention`` call.
 
     python3 chip_smoke.py
 
@@ -40,8 +48,10 @@ SEED = 0
 SOURCE = "src/repro_torch/csrc/segment_agg.cu"
 REPLACES = {"segagg_unsorted": "src/repro/kernels/segment_agg.py:287",
             "segagg_sorted": "src/repro/kernels/segment_agg.py:304",
-            "ssd_scan": "src/repro/kernels/ssd_scan.py:39"}
+            "ssd_scan": "src/repro/kernels/ssd_scan.py:39",
+            "decode_attn": "src/repro/kernels/decode_attn.py:38"}
 SSD_SOURCE = "src/repro_torch/csrc/ssd_scan.cu"
+DECODE_SOURCE = "src/repro_torch/csrc/decode_attn.cu"
 #: float32 rate of one H100 SXM's CUDA cores (NVIDIA data sheet): the peak
 #: the SSD kernel's arithmetic can use, all of it float32 by contract
 F32_FLOPS_PER_S = 67e12
@@ -50,6 +60,7 @@ LM_ARCH = "mamba2-2.7b"
 #: from 32 to 2 so one layer's activations fit the card's 80 GB
 PREFILL_BATCH, PREFILL_SEQ = 2, 32768
 LM_CHUNK = 128      # the launcher's ssd_chunk at full size
+DENSE_ARCH = "qwen3-14b"
 
 
 class SmokeFailure(RuntimeError):
@@ -718,6 +729,378 @@ def lm_phases(torch, ss, sa) -> dict:
             "bound_by": cap["bound_by"], "library_ms": None}
 
 
+# ---------------------------------------------------------------------------
+# The dense path: the flash-decode kernel, alone, on qwen3-14b's own caches
+# and at decode_32k
+# ---------------------------------------------------------------------------
+
+
+def decode_bound(kv_len, s, g, d, esize) -> tuple[float, float, str]:
+    """(bound ms, float32 flops, what bounds it) of one decode-attention
+    call: K and V up to each row's kv_len read once, q and kv_len read
+    once and out written once over the HBM rate, against 4·G·D flops per
+    attended position (q·k and p·v) over the float32 cores' rate."""
+    attended = int(kv_len.clamp(0, s).sum())
+    bh = kv_len.numel()
+    nbytes = 2 * attended * d * esize + 2 * bh * g * d * esize + 4 * bh
+    flops = 4.0 * g * d * attended
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3, flops,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def decode_inputs(torch, seed, bh, g, d, s, dtype, lens=None):
+    """q, k, v standard normal in ``dtype`` and kv_len uniform in [1, S]
+    (or ``lens``), made on the card from a seed."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda", dtype=dtype)
+               for shape in ((bh, g, d), (bh, s, d), (bh, s, d)))
+    if lens is None:
+        lens = torch.randint(1, s + 1, (bh,), generator=gen, device="cuda")
+    return q, k, v, torch.as_tensor(lens, device="cuda").to(torch.int32)
+
+
+def decode_sweep(torch, da, ref) -> None:
+    """The kernel against its plain version (relative Frobenius error
+    <= 1e-5 in float32, <= 5e-3 in bf16) and against the float32 oracle
+    (elementwise 2e-5 / 4e-2, the reference sweep's, on the rows with
+    kv_len >= 1), on the reference sweep's shapes and qwen3-14b's group
+    with S = 4096 + 77 and kv_len in {0, 1, 127, 128, 129, S}; kv_len = 0
+    rows exactly zero."""
+    s_q = 4096 + 77
+    shapes = [(2, 8, 128, 256, None), (1, 16, 128, 300, None),
+              (4, 8, 256, 512, None),
+              (6, 5, 128, s_q, [0, 1, 127, 128, 129, s_q])]
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).replace("torch.", "")
+        gate = 1e-5 if dtype == torch.float32 else 5e-3
+        tol = 2e-5 if dtype == torch.float32 else 4e-2
+        for i, (bh, g, d, s, lens) in enumerate(shapes):
+            q, k, v, kv_len = decode_inputs(torch, SEED + 20 + i, bh, g, d,
+                                            s, dtype, lens)
+            got = da.decode_attention(q, k, v, kv_len)
+            want = da.decode_attention(q, k, v, kv_len, backend="plain")
+            oracle = ref.decode_attention_ref(q, k, v, kv_len)
+            torch.cuda.synchronize()
+            err = rel_err(torch, got, want)
+            check(err <= gate, f"decode_attn {name} {(bh, g, d, s)}: "
+                               f"kernel vs plain rel_err {err}")
+            live = kv_len > 0
+            gl, ol = got[live].float(), oracle[live].float()
+            excess = float(((gl - ol).abs() - tol * (1 + ol.abs())).max())
+            check(excess <= 0, f"decode_attn {name} {(bh, g, d, s)}: kernel "
+                               "vs oracle past the elementwise gate")
+            check(bool((got[~live] == 0).all()),
+                  "decode_attn: a kv_len = 0 row is not zero")
+            shape = {"kernel": "decode_attn", "bh": bh, "g": g, "d": d,
+                     "s": s, "kv_len": kv_len.tolist(), "dtype": name,
+                     "split": da.default_split(bh, s),
+                     "tile": da.tile_rows(d, q.element_size())}
+            emit({"phase": "kernel_vs_plain", **shape, "rel_err": err,
+                  "gate": gate,
+                  "max_abs_err": float((got.float() - want.float()).abs()
+                                       .max())})
+            emit({"phase": "kernel_vs_oracle", **shape,
+                  "oracle": "float32 softmax",
+                  "max_abs_err": float((gl - ol).abs().max()),
+                  "gate": f"|err| <= {tol} (1 + |oracle|)"})
+    torch.cuda.empty_cache()
+
+
+def kernel_layout(q, kc, vc, lens):
+    """The model's decode-attention arguments, q (B, H, D), caches (B, S,
+    Hkv, D) and kv_len (B,), in the kernel's layout: (B·Hkv, G, D), (B·Hkv,
+    S, D) and (B·Hkv,)."""
+    b, h, d = q.shape
+    hkv = kc.shape[2]
+    return (q.reshape(b * hkv, h // hkv, d).contiguous(),
+            kc.permute(0, 2, 1, 3).reshape(b * hkv, -1, d).contiguous(),
+            vc.permute(0, 2, 1, 3).reshape(b * hkv, -1, d).contiguous(),
+            lens.repeat_interleave(hkv).to(lens.dtype))
+
+
+class Capture:
+    """Wraps ``owner.attr`` (a function of the model) so the calls with
+    index in ``keep`` record their arguments and output; restores it on
+    ``close``."""
+
+    def __init__(self, owner, attr, keep):
+        self.owner, self.attr, self.fn = owner, attr, getattr(owner, attr)
+        self.calls, self.count, self.keep = [], 0, keep
+
+        def wrapped(*a, **kw):
+            out = self.fn(*a, **kw)
+            if self.count in self.keep:
+                self.calls.append((a, out))
+            self.count += 1
+            return out
+        setattr(owner, attr, wrapped)
+
+    def close(self):
+        setattr(self.owner, self.attr, self.fn)
+
+
+def zero_counts(sa, ss, da) -> None:
+    sa.segagg_sorted.launches = sa.segagg_unsorted.launches = 0
+    ss.ssd_scan_cuda.launches = da.decode_attention_cuda.launches = 0
+
+
+def read_counts(sa, ss, da) -> dict:
+    return {"segagg_sorted": sa.segagg_sorted.launches,
+            "segagg_unsorted": sa.segagg_unsorted.launches,
+            "ssd_scan": ss.ssd_scan_cuda.launches,
+            "decode_attn": da.decode_attention_cuda.launches}
+
+
+def dense_serve(torch, sa, ss, da, lm, params, cfg) -> int:
+    """The launcher's LM workload in bf16 (4 slots, 8 requests, 16 new
+    tokens each).  The served decode runs the model's plain
+    ``decode_attention_jnp`` (no kernel launch, as in the reference); the
+    40 calls of one mid-run step are captured and fed to
+    ``ops.decode_attention``, with every count set to 0 just before and
+    read just after: kernel vs plain version <= 5e-3, kernel vs the output
+    the model used <= 1e-2, 40 launches.  Returns those launches."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.serve import make_requests, serve_requests
+    from repro_torch.models import attention
+
+    step = 24
+    cap = Capture(attention, "decode_attention_jnp",
+                  range(step * cfg.n_layers, (step + 1) * cfg.n_layers))
+    reqs = make_requests(cfg.vocab, 8, 16)
+    zero_counts(sa, ss, da)
+    try:
+        res = serve_requests(lm, params, reqs, slots=4, max_len=128)
+    finally:
+        cap.close()
+    served = read_counts(sa, ss, da)
+    check(res["done"] == 8 and all(len(r.out) == 16 for r in reqs),
+          f"dense_serve: {res['done']}/8 requests done")
+    check(not any(served.values()), f"dense_serve: the served decode "
+                                     f"launched kernels {served}")
+    check(len(cap.calls) == cfg.n_layers,
+          f"dense_serve: captured {len(cap.calls)} calls")
+    args = [(kernel_layout(*a), out) for a, out in cap.calls]
+    zero_counts(sa, ss, da)
+    outs = [ops.decode_attention(*ka) for ka, _ in args]
+    torch.cuda.synchronize()
+    counts = read_counts(sa, ss, da)
+    check(counts["decode_attn"] == cfg.n_layers and
+          sum(counts.values()) == cfg.n_layers,
+          f"dense_serve: ops.decode_attention launched {counts}")
+    err_plain = max(rel_err(torch, o, ref.decode_attention_chunked(*ka))
+                    for o, (ka, _) in zip(outs, args))
+    err_model = max(rel_err(torch, o, used.reshape(o.shape))
+                    for o, (_, used) in zip(outs, args))
+    check(err_plain <= 5e-3, f"dense_serve: kernel vs plain {err_plain}")
+    check(err_model <= 1e-2, f"dense_serve: kernel vs the model's decode "
+                             f"attention {err_model}")
+    q, kc, _, eff = cap.calls[0][0]
+    emit({"phase": "dense_serve", "dtype": "bfloat16", "slots": 4,
+          "requests": 8, "done": res["done"], "steps": res["steps"],
+          "prompt_lens": [len(r.prompt) for r in reqs], "max_new": 16,
+          "tokens": res["tokens"], "seconds": res["seconds"],
+          "launches_served": served, "captured_step": step,
+          "captured_q": list(q.shape), "captured_cache": list(kc.shape),
+          "captured_kv_len": eff.tolist(), "launches_ops": counts,
+          "rel_err_kernel_vs_plain": err_plain, "gate_plain": 5e-3,
+          "rel_err_kernel_vs_model": err_model, "gate_model": 1e-2})
+    return counts["decode_attn"]
+
+
+def dense_f32(torch, da, lm32, params32, cfg32) -> None:
+    """Full width, 4 layers, float32, 1 x 4096 tokens: the kernel at
+    kv_len = t + 1 on each layer's flash-prefill q, k, v equals flash's
+    output row t (<= 1e-5: two implementations of one function); prefill
+    against step-by-step decode (<= 1e-3); float32 serving, every served
+    token the batch-1 teacher-forced argmax."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import make_requests, serve_requests
+    from repro_torch.models import flash
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    toks = torch.randint(0, cfg32.vocab, (1, 4096), generator=gen,
+                         device="cuda")
+    cap = Capture(flash, "flash_attention", range(cfg32.n_layers))
+    try:
+        last, _ = lm32.prefill(params32, toks)
+    finally:
+        cap.close()
+    rows = torch.tensor([0, 1, 1023, 1024, 2047, 4095], device="cuda")
+    worst = 0.0
+    for (q, k, v, *_), out in cap.calls:
+        hkv, s = k.shape[2], k.shape[1]
+        qk = q[0, rows]                                      # (6, H, D)
+        kk = k[0].permute(1, 0, 2)[None].expand(len(rows), -1, -1, -1)
+        vv = v[0].permute(1, 0, 2)[None].expand(len(rows), -1, -1, -1)
+        got = ops.decode_attention(
+            qk.reshape(len(rows) * hkv, -1, qk.shape[-1]).contiguous(),
+            kk.reshape(len(rows) * hkv, s, -1).contiguous(),
+            vv.reshape(len(rows) * hkv, s, -1).contiguous(),
+            (rows + 1).repeat_interleave(hkv).to(torch.int32))
+        worst = max(worst, rel_err(torch, got, out[0, rows].reshape(
+            got.shape)))
+    check(worst <= 1e-5, f"dense_f32: decode kernel vs flash rows {worst}")
+    del cap
+
+    prompt = toks[:, :256]
+    last, _ = lm32.prefill(params32, prompt)
+    cache = lm32.init_cache(1, 256)
+    for i in range(prompt.shape[1]):
+        step, cache = lm32.decode_step(params32, cache, prompt[:, i:i + 1])
+    # decode masks the pad vocab to -1e30, prefill does not: real vocab only
+    err_dec = rel_err(torch, step[:, :cfg32.vocab], last[:, :cfg32.vocab])
+    check(err_dec <= 1e-3, f"dense_f32: prefill vs step-by-step decode "
+                           f"{err_dec}")
+    del cache, step, last
+
+    reqs = make_requests(cfg32.vocab, 8, 16)
+    res = serve_requests(lm32, params32, reqs, slots=4, max_len=128)
+    check(res["done"] == 8 and all(len(r.out) == 16 for r in reqs),
+          f"dense_f32 serve: {res['done']}/8 requests done")
+    margin = teacher_forced_margin(torch, lm32, params32, reqs)
+    check(margin >= -1e-4, f"dense_f32 serve: a served token is not the "
+                           f"batch-1 argmax (margin {margin})")
+    emit({"phase": "dense_f32", "layers": cfg32.n_layers,
+          "tokens": [1, 4096], "q_chunk": lm32.q_chunk,
+          "kv_chunk": lm32.kv_chunk, "rows": rows.tolist(),
+          "rel_err_kernel_vs_flash": worst, "gate_flash": 1e-5,
+          "decode_prompt": 256, "rel_err_prefill_vs_decode": err_dec,
+          "gate_decode": 1e-3, "served_steps": res["steps"],
+          "served_tokens": res["tokens"],
+          "teacher_forced_worst_margin": margin, "gate_margin": -1e-4})
+
+
+def sdpa_backend(torch, fn, want) -> str:
+    """The SDPA backend whose output equals ``want`` (the default
+    dispatch's) bit for bit, tried one backend at a time."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    for name in ("CUDNN_ATTENTION", "FLASH_ATTENTION", "EFFICIENT_ATTENTION",
+                 "MATH"):
+        backend = getattr(SDPBackend, name, None)
+        if backend is None:
+            continue
+        try:
+            with sdpa_kernel([backend]):
+                out = fn()
+        except RuntimeError:
+            continue
+        if torch.equal(out, want):
+            return name
+    return "not identified"
+
+
+def decode_32k(torch, da) -> dict:
+    """ROADMAP B4's card shape: decode_32k (batch 128, S = 32768) at
+    qwen3-14b's 8 KV heads, G = 5, D = 128, bf16, kv_len uniform in
+    [1, S] from seed 0 and all S.  Kernel, plain version and one SDPA call
+    (the library yardstick, never called by the port) timed by CUDA events
+    (median of 5; the plain version of 3); the kernel against the plain
+    version on the full shape (<= 5e-3) and against SDPA."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import SHAPES
+
+    shape = SHAPES["decode_32k"]
+    bh, g, d, s = shape.global_batch * 8, 5, 128, shape.seq_len
+    torch.cuda.reset_peak_memory_stats()
+    q, k, v, uniform = decode_inputs(torch, SEED, bh, g, d, s, torch.bfloat16)
+    line = None
+    for label, kv_len in (("uniform", uniform),
+                          ("full", torch.full_like(uniform, s))):
+        got = da.decode_attention(q, k, v, kv_len)
+        want = da.decode_attention(q, k, v, kv_len, backend="plain")
+        mask = torch.arange(s, device="cuda")[None, None, None, :] \
+            < kv_len[:, None, None, None]
+
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                q.view(bh, 1, g, d), k.view(bh, 1, s, d),
+                v.view(bh, 1, s, d), attn_mask=mask).view(bh, g, d)
+        lib = sdpa()
+        torch.cuda.synchronize()
+        err = rel_err(torch, got, want)
+        check(err <= 5e-3, f"decode_32k {label}: kernel vs plain {err}")
+        err_lib = rel_err(torch, got, lib)
+        max_abs = float((got.float() - want.float()).abs().max())
+        backend = sdpa_backend(torch, sdpa, lib)
+        del got, want, lib
+        ms = cuda_ms(torch, lambda: da.decode_attention(q, k, v, kv_len), 5)
+        plain = cuda_ms(torch, lambda: da.decode_attention(
+            q, k, v, kv_len, backend="plain"), 3)
+        lib_ms = cuda_ms(torch, sdpa, 5)
+        bound, flops, by = decode_bound(kv_len, s, g, d, 2)
+        row = {"phase": "decode_32k", "kv_len": label, "bh": bh, "g": g,
+               "d": d, "s": s, "dtype": "bfloat16",
+               "split": da.default_split(bh, s), "tile": da.tile_rows(d, 2),
+               "attended": int(kv_len.sum()), "rel_err_kernel_vs_plain": err,
+               "gate": 5e-3, "max_abs_err": max_abs,
+               "rel_err_kernel_vs_sdpa": err_lib, "sdpa_backend": backend,
+               "ms": ms, "plain_ms": plain, "sdpa_ms": lib_ms,
+               "bound_ms": bound, "bound_by": by, "flops": flops,
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        emit(row)
+        del mask
+        if label == "uniform":
+            line = row
+    del q, k, v
+    torch.cuda.empty_cache()
+    return line
+
+
+def dense_phases(torch, sa, ss, da) -> dict:
+    """qwen3-14b at full width and depth in bf16 (random init from seed 0
+    on the card), served; then 4 of its layers widened to float32; then
+    the decode_32k kernel phase with the model freed."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import LM
+
+    cfg = get_config(DENSE_ARCH)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    lm = LM(cfg)
+    t0 = time.perf_counter()
+    params = lm.init(torch.Generator(device="cuda").manual_seed(SEED))
+    torch.cuda.synchronize()
+    n_params = sum(v.numel() for v in _leaves(params))
+    analytic = cfg.param_count()
+    check(analytic == 14_768_291_840, f"dense_init: param_count {analytic}")
+    # the analytic count leaves out the qk-norm and final-norm scales
+    check(n_params == analytic + cfg.n_layers * 2 * cfg.head_dim
+          + cfg.d_model, f"dense_init: {n_params} parameters")
+    emit({"phase": "dense_init", "arch": DENSE_ARCH, "layers": cfg.n_layers,
+          "d_model": cfg.d_model, "heads": cfg.n_heads,
+          "kv_heads": cfg.n_kv_heads, "head_dim": cfg.head_dim,
+          "d_ff": cfg.d_ff, "vocab_padded": lm.vocab_padded,
+          "params": n_params, "param_count_analytic": analytic,
+          "bytes": 2 * n_params, "dtype": "bfloat16",
+          "seconds": time.perf_counter() - t0,
+          "peak_gib": torch.cuda.max_memory_allocated() / 2**30})
+
+    launches = dense_serve(torch, sa, ss, da, lm, params, cfg)
+
+    cfg32 = dataclasses.replace(cfg, n_layers=4)
+    params32 = {"embed": _tree_map(lambda t: t.float(), params["embed"]),
+                "final_norm": params["final_norm"].float(),
+                "blocks": _tree_map(lambda t: t[:4].float(),
+                                    params["blocks"])}
+    del params
+    torch.cuda.empty_cache()
+    lm32 = LM(cfg32, dtype=torch.float32)
+    dense_f32(torch, da, lm32, params32, cfg32)
+    del params32
+    torch.cuda.empty_cache()
+
+    row = decode_32k(torch, da)
+    return {"name": "decode_attn", "route": "cuda", "source": DECODE_SOURCE,
+            "replaces": REPLACES["decode_attn"], "launches": launches,
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["sdpa_ms"]}
+
+
 def main() -> int:
     try:
         import torch
@@ -734,6 +1117,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import build, ref
+    from repro_torch.kernels import decode_attn as da
     from repro_torch.kernels import segment_agg as sa
     from repro_torch.kernels import ssd_scan as ss
     from repro_torch.models.layers import reference_numerics
@@ -754,7 +1138,8 @@ def main() -> int:
     (out_dir / "nvcc.log").write_text(log)
     emit({"phase": "build", "seconds": secs,
           "libraries": [build.library_path(n).name
-                        for n in ("segment_agg", "ssd_scan")]})
+                        for n in ("segment_agg", "ssd_scan",
+                                  "decode_attn")]})
 
     value = ("sum", "count", "min", "max")
     index = (("argmin_first", "argmax_last", "sum", "count"),
@@ -775,6 +1160,8 @@ def main() -> int:
 
     ssd_phases(torch, ss, ref)
     kernels.append(lm_phases(torch, ss, sa))
+    decode_sweep(torch, da, ref)
+    kernels.append(dense_phases(torch, sa, ss, da))
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(card_line(), flush=True)
     emit({"kernels": kernels})

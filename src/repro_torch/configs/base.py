@@ -1,6 +1,6 @@
 """Architecture + shape configuration (twin of ``repro/configs/base.py``).
 The dataclass keeps every field of the reference so configs compare field
-for field; ``param_count`` covers the ported SSM family only."""
+for field; ``param_count`` covers the ported SSM and dense families."""
 from __future__ import annotations
 
 import dataclasses
@@ -76,18 +76,25 @@ class ArchConfig:
         )
 
     def param_count(self) -> int:
-        """Analytic parameter count of the SSM family (the other families
-        are not ported: ROADMAP A10)."""
-        if self.family != "ssm":
+        """Analytic parameter count of the ported families (SSM and dense;
+        the others raise: ROADMAP A10).  As in the reference, the qk-norm
+        and final-norm scales are not counted."""
+        d, v = self.d_model, self.vocab
+        if self.family == "ssm":
+            d_inner = self.ssm_expand * d
+            nh = d_inner // self.ssm_headdim
+            per = d * (2 * d_inner + 2 * self.ssm_state + nh) \
+                + self.conv_width * (d_inner + 2 * self.ssm_state) \
+                + d_inner * d + 2 * d
+        elif self.family == "dense":
+            h, kv, dh = self.n_heads, self.n_kv_heads, self.head_dim
+            attn = d * (h + 2 * kv) * dh + h * dh * d
+            mlp = 3 * d * self.d_ff if self.d_ff else 0
+            per = attn + mlp + 2 * d
+        else:
             raise NotImplementedError(
                 f"param_count of the {self.family!r} family is not ported "
                 "yet (ROADMAP A10)")
-        d, v = self.d_model, self.vocab
-        d_inner = self.ssm_expand * d
-        nh = d_inner // self.ssm_headdim
-        per = d * (2 * d_inner + 2 * self.ssm_state + nh) \
-            + self.conv_width * (d_inner + 2 * self.ssm_state) \
-            + d_inner * d + 2 * d
         return self.n_layers * per + v * d * (1 if self.tie_embeddings else 2)
 
 

@@ -80,7 +80,8 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-def build_all(names=("segment_agg", "ssd_scan")) -> tuple[float, str]:
+def build_all(names=("segment_agg", "ssd_scan", "decode_attn")
+              ) -> tuple[float, str]:
     """Build every named source in parallel and load each; returns the
     wall seconds taken and the compilers' output."""
     t0 = time.perf_counter()

@@ -1,8 +1,11 @@
 """Plain oracles (twin of ``repro/kernels/ref.py``): the segment
 contracts the kernels and their plain versions are held against, written
-as directly as torch allows, and the two SSD scans — the chunked dual form
+as directly as torch allows; the two SSD scans — the chunked dual form
 ``ssd_scan_chunked`` (the plain version of the SSD kernel) and the
-sequential recurrence ``ssd_scan_ref`` (its oracle)."""
+sequential recurrence ``ssd_scan_ref`` (its oracle); and the two decode
+attentions — ``decode_attention_chunked`` (the plain version of the
+flash-decode kernel) and the float32 softmax ``decode_attention_ref`` (its
+oracle)."""
 from __future__ import annotations
 
 import torch
@@ -61,6 +64,58 @@ def segment_arg_index_ref(keys: torch.Tensor, segs: torch.Tensor,
                         "amin", n)
     return _segment(torch.where(hit, idx, -1), segs, num_segments, "amax",
                     -1)
+
+
+def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         kv_len: torch.Tensor) -> torch.Tensor:
+    """Masked softmax attention, float32 throughout.  q (BH, G, D); k, v
+    (BH, S, D); kv_len (BH,) → (BH, G, D) in q's dtype.  A row with
+    kv_len = 0 is NaN (softmax over no position), as in the reference."""
+    d, s = q.shape[-1], k.shape[1]
+    scale = 1.0 / (d ** 0.5)
+    f32 = torch.float32
+    logits = (q.to(f32) @ k.to(f32).transpose(1, 2)) * scale     # (BH,G,S)
+    mask = torch.arange(s, device=q.device)[None, None, :] \
+        < kv_len.to(q.device)[:, None, None]
+    logits = torch.where(mask, logits, float("-inf"))
+    w = torch.softmax(logits, dim=-1)
+    return (w @ v.to(f32)).to(q.dtype)
+
+
+def decode_attention_chunked(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, kv_len: torch.Tensor,
+                             chunk: int = 128) -> torch.Tensor:
+    """The flash-decode kernel's own contract
+    (``repro/kernels/decode_attn.py:38-74``) in plain torch: an online
+    softmax over KV chunks of ``chunk`` with m, l and acc in float32; the
+    scale applied after the product; positions at or past kv_len masked
+    and the all-masked chunk guarded; the UNnormalised p rounded to v's
+    dtype before p·v while l sums the unrounded p; out = acc / max(l,
+    1e-30) in q's dtype, so a row with kv_len = 0 is zeros.  q (BH, G, D);
+    k, v (BH, S, D); kv_len (BH,).  (The reference pads S to a multiple of
+    ``chunk``; the last chunk here is shorter, the same function.)"""
+    bh, g, d = q.shape
+    s = k.shape[1]
+    scale = 1.0 / (d ** 0.5)
+    f32, inf = torch.float32, float("inf")
+    lens = kv_len.to(device=q.device, dtype=torch.int64)[:, None, None]
+    qf = q.to(f32)
+    m = torch.full((bh, g, 1), -inf, dtype=f32, device=q.device)
+    l = torch.zeros((bh, g, 1), dtype=f32, device=q.device)
+    acc = torch.zeros((bh, g, d), dtype=f32, device=q.device)
+    for j0 in range(0, s, chunk):
+        kc, vc = k[:, j0:j0 + chunk], v[:, j0:j0 + chunk]
+        sc = (qf @ kc.to(f32).transpose(1, 2)) * scale           # (BH,G,C)
+        pos = torch.arange(j0, j0 + kc.shape[1], device=q.device)
+        sc = torch.where(pos[None, None, :] < lens, sc, -inf)
+        m_new = torch.maximum(m, sc.amax(dim=-1, keepdim=True))
+        m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
+        p = torch.exp(torch.where(torch.isfinite(sc), sc - m_safe, -inf))
+        alpha = torch.exp(torch.where(torch.isfinite(m), m - m_safe, -inf))
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + p.to(v.dtype).to(f32) @ vc.to(f32)
+        m = m_new
+    return (acc / torch.clamp_min(l, 1e-30)).to(q.dtype)
 
 
 def _bc_heads(x: torch.Tensor, b: torch.Tensor) -> int:

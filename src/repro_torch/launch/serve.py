@@ -1,12 +1,13 @@
 """Serving launcher — twin of ``repro/launch/serve.py``.
 
 * ``--workload lm`` — the continuous-batching LM server
-  (``repro_torch.serve.serving``) over a ported arch (the SSM family:
-  ``mamba2-2.7b``).  ``--smoke`` serves the reduced config; ``--device
-  cpu`` runs on the CPU through the kernels' plain versions.
+  (``repro_torch.serve.serving``) over a ported arch: ``qwen3-14b`` (the
+  dense family, the default, as in the reference) or ``mamba2-2.7b`` (the
+  SSM family).  ``--smoke`` serves the reduced config; ``--device cpu``
+  runs on the CPU through the kernels' plain versions.
 
-      PYTHONPATH=src python -m repro_torch.launch.serve --workload lm --arch mamba2-2.7b
-      PYTHONPATH=src python -m repro_torch.launch.serve --workload lm --arch mamba2-2.7b --smoke --device cpu
+      PYTHONPATH=src python -m repro_torch.launch.serve --workload lm --arch qwen3-14b
+      PYTHONPATH=src python -m repro_torch.launch.serve --workload lm --arch qwen3-14b --smoke --device cpu
 
 * ``--workload agg`` — the aggregate-serving layer; not ported yet
   (ROADMAP A9): it exits with that message.
@@ -62,7 +63,9 @@ def _serve_lm(args) -> dict:
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = cfg.reduced()
-    lm = LM(cfg, ssd_chunk=8 if args.smoke else 128, device=args.device)
+    lm = LM(cfg, q_chunk=32 if args.smoke else 1024,
+            kv_chunk=32 if args.smoke else 1024,
+            ssd_chunk=8 if args.smoke else 128, device=args.device)
     params = lm.init(torch.Generator(device=lm.device).manual_seed(0))
     reqs = make_requests(cfg.vocab, args.requests, args.max_new)
     res = serve_requests(lm, params, reqs, slots=args.slots,
@@ -75,7 +78,7 @@ def _serve_lm(args) -> dict:
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--workload", choices=("agg", "lm"), default="agg")
-    ap.add_argument("--arch", default="mamba2-2.7b")
+    ap.add_argument("--arch", default="qwen3-14b")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--max-new", type=int, default=16)

@@ -1,7 +1,9 @@
 """Parameters of the reference's ``LM.init`` pytree in the port's layout.
 
 The reference stores most leaves in the model dtype and keeps the SSM
-decay, bias and skip vectors in float32.  ``params_from_jax`` takes that
+decay, bias and skip vectors in float32; every leaf of the dense family
+(``wq``, ``wk``, ``wv``, ``wo``, ``q_norm``, ``k_norm``, the gated-MLP
+weights, ``norm1``/``norm2``) is in the model dtype.  ``params_from_jax`` takes that
 pytree as nested dicts of **float32** numpy arrays (a bf16 → float32 cast
 is exact, and numpy has no bf16 without ``ml_dtypes``) and returns the
 same values as tensors: float32 leaves stay float32, the rest go to

@@ -1,6 +1,7 @@
-"""The LM — twin of the SSM family's part of ``repro/models/model.py``:
-embedding, the stacked SSM blocks, the final norm and the unembedding,
-with the prefill and decode entry points.
+"""The LM — twin of the SSM and dense families' part of
+``repro/models/model.py``: embedding, the stacked SSM or dense (attention
++ gated MLP) blocks, the final norm and the unembedding, with the prefill
+and decode entry points.
 
 Parameters are a dict of tensors stacked ``(n_layers, ...)`` as the
 reference's scanned layers are; ``models.convert.params_from_jax`` maps the
@@ -29,21 +30,28 @@ def layer(tree: dict, i: int) -> dict:
 
 
 class LM:
-    """The SSM-family LM.  ``device`` None means the card (raises without
-    CUDA); ``ssd_backend`` goes to ``kernels.ssd_scan`` ("auto": the CUDA
-    kernel on the card, the plain version on the CPU; "plain": the plain
-    version on either).  The entry points, not ``LM``, pin the backend
-    switches of ``layers.reference_numerics``."""
+    """The SSM- or dense-family LM.  ``device`` None means the card (raises
+    without CUDA); ``ssd_backend`` goes to ``kernels.ssd_scan`` ("auto":
+    the CUDA kernel on the card, the plain version on the CPU; "plain":
+    the plain version on either); ``q_chunk``/``kv_chunk`` are the dense
+    family's flash-attention blocks.  The entry points, not ``LM``, pin
+    the backend switches of ``layers.reference_numerics``."""
 
-    def __init__(self, cfg: ArchConfig, *, ssd_chunk: int = 64,
+    def __init__(self, cfg: ArchConfig, *, q_chunk: int = 1024,
+                 kv_chunk: int = 1024, ssd_chunk: int = 64,
                  dtype: torch.dtype = torch.bfloat16,
-                 vocab_pad_multiple: int = 128, device=None,
-                 ssd_backend: str = "auto"):
-        if cfg.family != "ssm":
+                 vocab_pad_multiple: int = 128, pad_heads_multiple: int = 0,
+                 device=None, ssd_backend: str = "auto"):
+        if cfg.family not in ("ssm", "dense"):
             raise NotImplementedError(
                 f"LM for the {cfg.family!r} family is not ported yet: the "
-                "port runs the ssm family only (ROADMAP A10)")
+                "port runs the ssm and dense families only (ROADMAP A10)")
+        if cfg.sliding_window or pad_heads_multiple:
+            raise NotImplementedError(
+                "sliding-window attention and padded heads are not ported "
+                "yet (ROADMAP A10)")
         self.cfg = cfg
+        self.q_chunk, self.kv_chunk = q_chunk, kv_chunk
         self.ssd_chunk = ssd_chunk
         self.dtype = dtype
         self.vocab_pad_multiple = vocab_pad_multiple
@@ -74,7 +82,7 @@ class LM:
             "embed": init_embed(generator, self.vocab_padded, cfg.d_model,
                                 cfg.tie_embeddings, self.dtype, self.device),
             "final_norm": B.init_norm(cfg, self.dtype, self.device),
-            "blocks": B.init_block(generator, cfg, "ssm", self.dtype,
+            "blocks": B.init_block(generator, cfg, cfg.family, self.dtype,
                                    self.device, layers=cfg.n_layers),
         }
 
@@ -85,24 +93,46 @@ class LM:
     def _tokens(self, tokens) -> torch.Tensor:
         return torch.as_tensor(tokens, device=self.device)
 
-    def hidden(self, params: dict, tokens) -> torch.Tensor:
-        """tokens (B,S) → final-normed hidden states (B,S,d)."""
-        x = embed(params["embed"], self._tokens(tokens)).to(self.dtype)
-        for i in range(self.cfg.n_layers):
-            x = B.fwd_ssm(layer(params["blocks"], i), x, self.cfg,
-                          ssd_chunk=self.ssd_chunk, backend=self.ssd_backend)
-        return rms_norm(x, params["final_norm"])
+    def hidden(self, params: dict, tokens, collect_cache: bool = False):
+        """tokens (B,S) → (final-normed hidden states (B,S,d), the
+        per-layer (k, v) stacked (L, B, S, Hkv, D) when ``collect_cache``
+        and the family has attention, else None)."""
+        cfg = self.cfg
+        tokens = self._tokens(tokens)
+        x = embed(params["embed"], tokens).to(self.dtype)
+        ks, vs = [], []
+        if cfg.family == "dense":
+            b, s = tokens.shape
+            positions = torch.arange(s, device=self.device)[None] \
+                .expand(b, s)
+        for i in range(cfg.n_layers):
+            lp = layer(params["blocks"], i)
+            if cfg.family == "ssm":
+                x = B.fwd_ssm(lp, x, cfg, ssd_chunk=self.ssd_chunk,
+                              backend=self.ssd_backend)
+            else:
+                x, (k, v) = B.fwd_dense(lp, x, positions, cfg,
+                                        q_chunk=self.q_chunk,
+                                        kv_chunk=self.kv_chunk)
+                if collect_cache:
+                    ks.append(k)
+                    vs.append(v)
+        caches = (torch.stack(ks), torch.stack(vs)) if ks else None
+        return rms_norm(x, params["final_norm"]), caches
 
-    def forward(self, params: dict, tokens):
-        """tokens (B,S) → (logits (B,S,V) f32, aux, None)."""
-        logits = unembed(params["embed"], self.hidden(params, tokens))
-        return logits, torch.zeros((), dtype=F32, device=self.device), None
+    def forward(self, params: dict, tokens, *, collect_cache: bool = False):
+        """tokens (B,S) → (logits (B,S,V) f32, aux, caches): caches are the
+        dense family's per-layer (k, v) stacked (L, B, S, Hkv, D) when
+        ``collect_cache``, else None."""
+        x, caches = self.hidden(params, tokens, collect_cache)
+        logits = unembed(params["embed"], x)
+        return logits, torch.zeros((), dtype=F32, device=self.device), caches
 
     def prefill(self, params: dict, tokens):
         """Prefill: (last-position logits (B,V) f32, aux).  The same values
         as ``forward(...)[0][:, -1]``; only the last position is
         unembedded.  No cache is returned, as in the reference."""
-        x = self.hidden(params, tokens)
+        x, _ = self.hidden(params, tokens)
         return (unembed(params["embed"], x[:, -1]),
                 torch.zeros((), dtype=F32, device=self.device))
 
@@ -111,26 +141,43 @@ class LM:
     # ------------------------------------------------------------------
 
     def init_cache(self, batch: int, cache_len: int, *,
-                   params: Optional[dict] = None) -> dict:
-        """Empty caches: per layer the conv window and the SSD state
-        (``cache_len`` is unused by the SSM family, as in the reference)."""
+                   params: Optional[dict] = None, start_len=None) -> dict:
+        """Empty (or pre-aged) caches.  SSM family: per layer the conv
+        window and the SSD state (``cache_len`` unused, as in the
+        reference).  Dense family: per layer the attention cache {"k",
+        "v" (B, cache_len, Hkv, D), "len" (B,) int32}; ``start_len`` (B,)
+        or a scalar pre-ages "len"."""
         cfg = self.cfg
-        return {"layers": init_ssm_cache(
-            batch, cfg.d_model, state=cfg.ssm_state, headdim=cfg.ssm_headdim,
-            expand=cfg.ssm_expand, conv_width=cfg.conv_width,
-            dtype=self.dtype, device=self.device, layers=cfg.n_layers)}
+        if cfg.family == "ssm":
+            return {"layers": init_ssm_cache(
+                batch, cfg.d_model, state=cfg.ssm_state,
+                headdim=cfg.ssm_headdim, expand=cfg.ssm_expand,
+                conv_width=cfg.conv_width, dtype=self.dtype,
+                device=self.device, layers=cfg.n_layers)}
+        shape = (cfg.n_layers, batch, cache_len, cfg.n_kv_heads,
+                 cfg.head_dim)
+        ln = torch.zeros((batch,), dtype=torch.int32, device=self.device)
+        if start_len is not None:
+            ln = ln + torch.as_tensor(start_len, dtype=torch.int32,
+                                      device=self.device)
+        return {"layers": {
+            "k": torch.zeros(shape, dtype=self.dtype, device=self.device),
+            "v": torch.zeros(shape, dtype=self.dtype, device=self.device),
+            "len": ln[None].repeat(cfg.n_layers, 1)}}
 
     def decode_step(self, params: dict, cache: dict,
                     tokens) -> tuple[torch.Tensor, dict]:
         """tokens (B,1) → (logits (B,V) f32 with the pad vocab masked, new
         cache)."""
+        cfg = self.cfg
+        step = B.dec_ssm if cfg.family == "ssm" else B.dec_dense
         x = embed(params["embed"], self._tokens(tokens)).to(self.dtype)
-        new = {"conv": [], "h": []}
-        for i in range(self.cfg.n_layers):
-            x, nc = B.dec_ssm(layer(params["blocks"], i), x,
-                              layer(cache["layers"], i), self.cfg)
-            new["conv"].append(nc["conv"])
-            new["h"].append(nc["h"])
+        new = {k: [] for k in cache["layers"]}
+        for i in range(cfg.n_layers):
+            x, nc = step(layer(params["blocks"], i), x,
+                         layer(cache["layers"], i), cfg)
+            for k, v in nc.items():
+                new[k].append(v)
         x = rms_norm(x, params["final_norm"])
         logits = self._mask_pad_logits(unembed(params["embed"], x))[:, 0]
         return logits, {"layers": {k: torch.stack(v) for k, v in

@@ -1,7 +1,10 @@
 """The CUDA kernels on the card: the segment kernels against their plain
 version bit for bit, the grouped TPC-H path on the card against the same
 path on the CPU, and the SSD-scan kernel against its plain version and the
-float64 sequential oracle, alone and inside the LM.  Every test here needs a CUDA card and skips without one; this file
+float64 sequential oracle, alone and inside the LM, and the split-KV
+flash-decode kernel against its plain version and the float32 oracle,
+alone and behind ``kernels.ops``.  Every test here needs a CUDA card and
+skips without one; this file
 imports neither ``jax`` nor ``repro``, so on a GPU machine it runs alone:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda_kernels.py
@@ -11,7 +14,8 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config
-from repro_torch.kernels import ref
+from repro_torch.kernels import decode_attn as da
+from repro_torch.kernels import ops, ref
 from repro_torch.kernels import segment_agg as sa
 from repro_torch.kernels import ssd_scan as ss
 from repro_torch.models import LM
@@ -181,3 +185,66 @@ def test_lm_prefill_through_the_kernel():
         assert ss.ssd_scan_cuda.launches - before == \
             (cfg.n_layers if backend == "auto" else 0)
     assert _rel(out["auto"], out["plain"]) <= 1e-4
+
+
+def _decode_inputs(seed, bh, g, d, s, dtype, lens=None):
+    r = np.random.default_rng(seed)
+    q, k, v = (torch.as_tensor(r.standard_normal(shape), dtype=dtype)
+               for shape in ((bh, g, d), (bh, s, d), (bh, s, d)))
+    if lens is None:
+        lens = r.integers(1, s + 1, bh)
+    return [t.cuda() for t in (q, k, v, torch.as_tensor(lens,
+                                                        dtype=torch.int32))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh,g,d,s,lens", [
+    (2, 8, 128, 256, None), (1, 16, 128, 300, None), (4, 8, 256, 512, None),
+    (6, 5, 128, 4173, [0, 1, 127, 128, 129, 4173]), (3, 4, 64, 40, None)])
+def test_decode_kernel_matches_plain_version(dtype, bh, g, d, s, lens):
+    """Against the plain version: relative Frobenius error <= 1e-5 in
+    float32 (summation order) and <= 5e-3 in bf16 (a split's own running
+    max rounds p to bf16 apart from the sequential one); against the
+    float32 oracle elementwise at the reference sweep's 2e-5 / 4e-2 on the
+    rows with kv_len >= 1; kv_len = 0 rows exactly zero."""
+    q, k, v, kv_len = _decode_inputs(s + d, bh, g, d, s, dtype, lens)
+    before = da.decode_attention_cuda.launches
+    got = da.decode_attention(q, k, v, kv_len)
+    assert da.decode_attention_cuda.launches == before + 1
+    want = da.decode_attention(q, k, v, kv_len, backend="plain")
+    assert da.decode_attention_cuda.launches == before + 1
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (bh, g, d)
+    assert _rel(got, want) <= (1e-5 if dtype == torch.float32 else 5e-3)
+    live = kv_len > 0
+    tol = 2e-5 if dtype == torch.float32 else 4e-2
+    torch.testing.assert_close(got[live].float(),
+                               ref.decode_attention_ref(q, k, v, kv_len)
+                               [live].float(), rtol=tol, atol=tol)
+    assert bool((got[~live] == 0).all())
+    for split in (128, 384):
+        again = da.decode_attention_cuda(q, k, v, kv_len, split)
+        assert _rel(again, want) <= (1e-5 if dtype == torch.float32
+                                     else 5e-3)
+
+
+def test_decode_kernel_checks_and_ops_route():
+    q, k, v, kv_len = _decode_inputs(0, 2, 8, 128, 64, torch.float32)
+    with pytest.raises(ValueError, match="one dtype"):
+        da.decode_attention_cuda(q, k.bfloat16(), v, kv_len)
+    with pytest.raises(ValueError, match="int32"):
+        da.decode_attention_cuda(q, k, v, kv_len.long())
+    with pytest.raises(ValueError, match="contiguous"):
+        da.decode_attention_cuda(q, k.transpose(1, 2).contiguous()
+                                 .transpose(1, 2), v, kv_len)
+    with pytest.raises(ValueError, match="G="):
+        da.decode_attention_cuda(*_decode_inputs(0, 1, 17, 128, 64,
+                                                 torch.float32))
+    with pytest.raises(ValueError, match="split"):
+        da.decode_attention_cuda(q, k, v, kv_len, 100)
+    before = da.decode_attention_cuda.launches
+    got = ops.decode_attention(q, k, v, kv_len)
+    assert da.decode_attention_cuda.launches == before + 1
+    plain = ops.decode_attention(q, k, v, kv_len, use_pallas=False)
+    assert da.decode_attention_cuda.launches == before + 1
+    assert _rel(got, plain) <= 1e-5
